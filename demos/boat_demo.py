@@ -17,7 +17,7 @@ import numpy as np
 
 from common import run_replan_loop, run_single
 
-from lqrrt_tpu.models import boat
+from lqrrt_jax.models import boat
 
 
 def main():

@@ -10,7 +10,7 @@ import numpy as np
 
 from common import run_replan_loop, run_single
 
-from lqrrt_tpu.models import car
+from lqrrt_jax.models import car
 
 
 def main():

@@ -5,8 +5,8 @@ simulate tracking the plan, animate).  Here each model module exports a
 ``default_problem()`` dict, so the demos share this driver.
 
 Tracking runs as ONE jitted lax.scan on device (per-step host dispatch would
-dominate wall time on remotely-attached TPUs), applying feedforward efforts
-plus LQR feedback about the planned reference.
+dominate wall time), applying feedforward efforts plus LQR feedback about the
+planned reference.
 """
 import os
 import sys
@@ -19,11 +19,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax            # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-import lqrrt_tpu      # noqa: E402
-from lqrrt_tpu.utils.cache import enable_persistent_cache  # noqa: E402
+import lqrrt_jax      # noqa: E402
+from lqrrt_jax.utils.cache import enable_persistent_cache  # noqa: E402
 
-enable_persistent_cache(os.path.join(os.path.dirname(
-    os.path.abspath(__file__)), "..", ".jax_cache"))
+enable_persistent_cache()
 
 
 def build_planner(prob, seed=0, **overrides):
@@ -32,7 +31,7 @@ def build_planner(prob, seed=0, **overrides):
               wrap_dims=prob.get("wrap_dims", ()),
               saturate=prob.get("saturate"), FPR=0.2)
     kw.update(overrides)
-    return lqrrt_tpu.Planner(
+    return lqrrt_jax.Planner(
         prob["dynamics"], prob["lqr"], prob["constraints"],
         horizon=prob["horizon"], dt=prob["dt"], goal0=prob["goal"], **kw)
 

@@ -8,7 +8,7 @@ import sys
 
 from common import run_replan_loop, run_single
 
-from lqrrt_tpu.models import double_integrator as di
+from lqrrt_jax.models import double_integrator as di
 
 
 def main():

@@ -1,10 +1,10 @@
 """P4: fleet replanning — many simultaneous boat scenarios, scenario axis
-sharded over the device mesh (BASELINE.json config: "Pod-scale fleet
-replanning: 1k simultaneous boat scenarios sharded across N>=2 hosts").
+sharded over the device mesh (BASELINE.json config 5: 1k simultaneous
+boat scenarios).
 
-On one chip this runs the vmapped fleet on a 1-device mesh; on a pod slice
-the same code shards scenarios across all devices (see
-lqrrt_tpu/parallel/fleet.py and tests/test_sharded.py for the 8-virtual-device
+On one GPU this runs the vmapped fleet on a 1-device mesh; on several the
+same code shards scenarios across all devices (see
+lqrrt_jax/parallel/fleet.py and tests/test_sharded.py for the 8-virtual-device
 version).
 
 Run:  python demos/fleet_demo.py [--scenarios 64] [--rounds 8]
@@ -20,9 +20,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax  # noqa: E402
 
-from lqrrt_tpu.models import boat  # noqa: E402
-from lqrrt_tpu.parallel import mesh as meshlib  # noqa: E402
-from lqrrt_tpu.parallel.fleet import FleetPlanner  # noqa: E402
+from lqrrt_jax.models import boat  # noqa: E402
+from lqrrt_jax.parallel import mesh as meshlib  # noqa: E402
+from lqrrt_jax.parallel.fleet import FleetPlanner  # noqa: E402
 
 
 def main():

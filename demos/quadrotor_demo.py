@@ -10,7 +10,7 @@ import numpy as np
 
 from common import run_replan_loop, run_single
 
-from lqrrt_tpu.models import quadrotor as quad
+from lqrrt_jax.models import quadrotor as quad
 
 
 def main():

@@ -5,7 +5,8 @@ the global device count is 8 across 2 processes.  The worker builds the 2-D
 (hosts x chips) mesh over the GLOBAL device set, checks a flat-index psum,
 then runs one candidate-sharded expansion round of the double-integrator
 problem and prints the resulting tree size — the same collectives a real
-2-host pod slice would run over DCN + ICI.
+2-host deployment would run over the network between hosts and NVLink
+within each.
 
 Usage: python _distributed_worker.py <coordinator> <num_procs> <process_id>
 """
@@ -29,7 +30,7 @@ def main():
     import jax.numpy as jnp
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    from lqrrt_tpu.parallel import mesh as meshlib
+    from lqrrt_jax.parallel import mesh as meshlib
 
     meshlib.init_distributed(coordinator, num_procs, pid)
     assert jax.process_count() == num_procs, jax.process_count()
@@ -52,10 +53,10 @@ def main():
     print(f"PSUM_OK {pid} {total}", flush=True)
 
     # --- one sharded expansion round over the 2-process mesh ---
-    from lqrrt_tpu.core.rounds import RoundSpec
-    from lqrrt_tpu.core.tree import init_tree
-    from lqrrt_tpu.models import double_integrator as di
-    from lqrrt_tpu.parallel.sharded import make_sharded_round
+    from lqrrt_jax.core.rounds import RoundSpec
+    from lqrrt_jax.core.tree import init_tree
+    from lqrrt_jax.models import double_integrator as di
+    from lqrrt_jax.parallel.sharded import make_sharded_round
 
     prob = di.default_problem()
     spec = RoundSpec(nstates=4, ncontrols=2, batch=8 * n_global,
@@ -81,15 +82,14 @@ def main():
     assert size > 1, size
     print(f"ROUND_OK {pid} {size}", flush=True)
 
-    # --- FULL Planner.update_plan across the process boundary (VERDICT r3
-    # item 3): the chunked anytime facade — fused on-device restarts,
-    # candidate sharding over (host, dp), best-edge all-gather over DCN+ICI,
+    # --- FULL Planner.update_plan across the process boundary: the chunked anytime facade — fused on-device restarts,
+    # candidate sharding over (host, dp), best-edge all-gather across hosts,
     # extraction — must commit BIT-IDENTICAL plans in both processes.  The
     # injected clock is call-counted, so both processes execute the exact
     # same number of chunks (wall-clock divergence would deadlock the
     # collectives — this is precisely the host-loop logic only a real
     # cross-process run can validate). ---
-    import lqrrt_tpu
+    import lqrrt_jax
 
     calls = {"n": 0}
 
@@ -97,7 +97,7 @@ def main():
         calls["n"] += 1
         return 0.0 if calls["n"] <= 6 else 1e9
 
-    planner = lqrrt_tpu.Planner(
+    planner = lqrrt_jax.Planner(
         prob["dynamics"], prob["lqr"], prob["constraints"],
         horizon=prob["horizon"], dt=prob["dt"], goal0=prob["goal"],
         printing=False, batch_size=8 * n_global, capacity=256, nn_block=128,
@@ -111,13 +111,13 @@ def main():
               round(float(np.abs(xs).sum()), 3))
     print(f"PLAN_OK {pid} {digest}", flush=True)
 
-    # --- fleet (P4) across the process boundary (VERDICT r4 item 7): the
+    # --- fleet (P4) across the process boundary: the
     # 1k-scenario BASELINE config is "sharded across >=2 hosts"; this runs a
     # 16-scenario double-integrator fleet over the flattened 8-device global
     # mesh in fixed-rounds mode (deterministic — no wall clock to diverge
     # between processes) and digests per-scenario sizes/goals through a
     # replicated-output reduction both processes must agree on. ---
-    from lqrrt_tpu.parallel.fleet import FleetPlanner
+    from lqrrt_jax.parallel.fleet import FleetPlanner
 
     fmesh = meshlib.make_fleet_mesh(n_global)
     S = 16

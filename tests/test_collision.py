@@ -3,7 +3,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from lqrrt_tpu.ops import collision
+from lqrrt_jax.ops import collision
 
 
 def test_circles_free():

@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from lqrrt_tpu.constraints import Constraints
+from lqrrt_jax.constraints import Constraints
 
 
 def _c(**kw):

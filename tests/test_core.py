@@ -5,10 +5,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from lqrrt_tpu.core.nearest import make_nearest, goal_cost_to_go
-from lqrrt_tpu.core.sampling import normalize_goal_bias, sample_batch
-from lqrrt_tpu.core.steer import make_steer
-from lqrrt_tpu.ops.angles import make_erf, wrap_angle
+from lqrrt_jax.core.nearest import make_nearest, goal_cost_to_go
+from lqrrt_jax.core.sampling import normalize_goal_bias, sample_batch
+from lqrrt_jax.core.steer import make_steer
+from lqrrt_jax.ops.angles import make_erf, wrap_angle
 
 
 def test_sample_batch_bounds_and_bias():
@@ -130,8 +130,8 @@ def test_steer_truncates_on_infeasible():
 
 
 def test_steer_goal_stop_first_entry():
-    """goal_buffer= fuses first-entry goal truncation into the scan (C6,
-    VERDICT r2 item 3): the rollout must stop at the FIRST step inside the
+    """goal_buffer= fuses first-entry goal truncation into the scan (C6):
+    the rollout must stop at the FIRST step inside the
     goal box, length/in_goal/xnew must match the two-pass reference (sweep
     the plain rollout for the first committed in-goal step)."""
     n, H, dt = 4, 120, 0.05
@@ -187,8 +187,8 @@ def test_dense_commit_matches_scatter_commit():
     """commit_batch_dense (sort + dynamic_update_slice) must agree with the
     scatter commit on the valid region for any mix of valid/invalid/overflow
     candidates."""
-    from lqrrt_tpu.core.commit import commit_batch, commit_batch_dense
-    from lqrrt_tpu.core.tree import init_tree
+    from lqrrt_jax.core.commit import commit_batch, commit_batch_dense
+    from lqrrt_jax.core.tree import init_tree
 
     N, H, n, m, B = 16, 4, 3, 2, 8
     rng = np.random.default_rng(0)
@@ -235,8 +235,8 @@ def test_refine_commit_leaf_replacement():
     """commit_batch_refine: best candidate replaces the worst replaceable
     leaf; interior nodes, goal nodes, this batch's parents, and the root are
     never victims; n_children stays consistent; size is unchanged."""
-    from lqrrt_tpu.core.commit import commit_batch_refine
-    from lqrrt_tpu.core.tree import init_tree
+    from lqrrt_jax.core.commit import commit_batch_refine
+    from lqrrt_jax.core.tree import init_tree
 
     N, H, n, m, B = 8, 2, 2, 1, 3
     t = init_tree(N, H, n, m, jnp.zeros(n), jnp.eye(n), jnp.zeros((m, n)),
@@ -292,9 +292,9 @@ def test_expand_truncates_at_first_goal_entry():
     time-to-goal gains dt resolution (core/rounds.py first-entry truncation;
     the reference tests only the endpoint, quantizing plan durations at
     horizon multiples)."""
-    from lqrrt_tpu.core.rounds import RoundSpec, make_expand
-    from lqrrt_tpu.core.tree import init_tree
-    from lqrrt_tpu.models import double_integrator as di
+    from lqrrt_jax.core.rounds import RoundSpec, make_expand
+    from lqrrt_jax.core.tree import init_tree
+    from lqrrt_jax.models import double_integrator as di
 
     prob = di.default_problem(obstacles=False)
     H = 80
@@ -325,10 +325,10 @@ def test_expand_truncates_at_first_goal_entry():
 
 
 def test_steer_bt_layout_matches_batch_leading():
-    """layout="bt" (batch-trailing (n, B) scan carry, the TPU lane-friendly
-    form) is a drop-in for the default layout: identical booleans/lengths,
+    """layout="bt" (batch-trailing (n, B) scan carry, batch in the minor
+    dimension) is a drop-in for the default layout: identical booleans/lengths,
     float outputs equal to contraction-order tolerance (core/steer.py)."""
-    from lqrrt_tpu.models import boat
+    from lqrrt_jax.models import boat
 
     prob = boat.default_problem()
     H, dt = 60, 0.05
@@ -361,8 +361,8 @@ def test_commit_all_matches_dense_on_valid_rows():
     with data identical to the sorted dense commit; invalid rows become
     zero-length duplicates of their parent that are inert: in_goal False,
     no child-count contribution, goal_found unchanged."""
-    from lqrrt_tpu.core.commit import commit_batch_dense, commit_batch_dense_all
-    from lqrrt_tpu.core.tree import init_tree
+    from lqrrt_jax.core.commit import commit_batch_dense, commit_batch_dense_all
+    from lqrrt_jax.core.tree import init_tree
 
     N, H, n, m, B = 32, 4, 3, 2, 8
     rng = np.random.default_rng(1)

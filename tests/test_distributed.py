@@ -2,7 +2,7 @@
 parallel.mesh.init_distributed for real — two OS processes, a gRPC
 coordinator on localhost, 4 virtual CPU devices each — then runs a psum and
 one candidate-sharded expansion round over the global 2x4 (hosts x chips)
-mesh.  This is the single-machine stand-in for a 2-host pod slice
+mesh.  This is the single-machine stand-in for a 2-host deployment
 (SURVEY.md section 4 item 4).
 """
 import os
@@ -55,7 +55,7 @@ def test_two_process_distributed_round():
                .strip() for o in outs}
     assert len(digests) == 1, outs
     # and the scenario-sharded fleet (P4) agrees across processes on the
-    # per-scenario size/goal/state digest (VERDICT r4 item 7)
+    # per-scenario size/goal/state digest
     for i, out in enumerate(outs):
         assert f"FLEET_OK {i}" in out, out
     fdigests = {o.split("FLEET_OK")[1].splitlines()[0].split(maxsplit=1)[1]

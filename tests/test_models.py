@@ -8,13 +8,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import lqrrt_tpu
-from lqrrt_tpu.models import boat, car, quadrotor
+import lqrrt_jax
+from lqrrt_jax.models import boat, car, quadrotor
 
 
 def _plan(prob, wrap_dims, batch=64, cap=2048, max_time=30.0, seed=11,
           goal_bias=0.2):
-    planner = lqrrt_tpu.Planner(
+    planner = lqrrt_jax.Planner(
         prob["dynamics"], prob["lqr"], prob["constraints"],
         horizon=prob["horizon"], dt=prob["dt"], goal0=prob["goal"],
         min_time=0.0, max_time=max_time, printing=False,
@@ -114,7 +114,7 @@ def test_boat_grid_obstacle_model_matches_circles():
 
 
 def test_boat_hard_problem_geometry():
-    """The two-wall anytime-quality instance (QUALITY_r05.json): straight
+    """The two-wall anytime-quality instance: straight
     line blocked by both walls; the offset openings are feasible."""
     prob = boat.hard_problem()
     feas = prob["constraints"].is_feasible

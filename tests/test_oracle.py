@@ -1,14 +1,14 @@
 """Golden parity tests: numpy oracle (sequential reference semantics) vs the
-batched TPU planner, tolerance-based (SURVEY.md section 4 item 2 and section 7
+batched planner, tolerance-based (SURVEY.md section 4 item 2 and section 7
 "order-dependence of RRT — use tolerance-based trajectory comparison")."""
 import numpy as np
 import scipy.linalg
 import jax.numpy as jnp
 import pytest
 
-import lqrrt_tpu
-from lqrrt_tpu.models import boat, double_integrator as di
-from lqrrt_tpu.oracle import numpy_planner as oracle
+import lqrrt_jax
+from lqrrt_jax.models import boat, double_integrator as di
+from lqrrt_jax.oracle import numpy_planner as oracle
 
 
 def test_numpy_boat_dynamics_matches_jax():
@@ -25,7 +25,7 @@ def test_numpy_boat_dynamics_matches_jax():
 
 
 def test_numpy_car_dynamics_matches_jax():
-    from lqrrt_tpu.models import car
+    from lqrrt_jax.models import car
     dyn_np, _, _ = oracle.car_dynamics_factory()
     rng = np.random.default_rng(1)
     for _ in range(20):
@@ -38,7 +38,7 @@ def test_numpy_car_dynamics_matches_jax():
 
 
 def test_numpy_quadrotor_dynamics_matches_jax():
-    from lqrrt_tpu.models import quadrotor as quad
+    from lqrrt_jax.models import quadrotor as quad
     dyn_np, _, _ = oracle.quadrotor_dynamics_factory()
     rng = np.random.default_rng(2)
     for _ in range(20):
@@ -53,7 +53,7 @@ def test_numpy_quadrotor_dynamics_matches_jax():
 def test_scipy_relinearized_lqr_matches_jax_car():
     """The oracle's scipy CARE stack must agree with the jax batched-Riccati
     stack at sample linearization points (disjoint solver paths, same math)."""
-    from lqrrt_tpu.models import car
+    from lqrrt_jax.models import car
     _, _, f_np = oracle.car_dynamics_factory()
     Q = np.diag([1.0, 1.0, 0.5, 0.3]); R = np.diag([0.5, 2.0])
 
@@ -107,7 +107,8 @@ def test_oracle_di_reaches_goal():
 
 
 def test_tpu_planner_matches_oracle_quality():
-    """Both planners solve D1; TPU plan duration within 2x of oracle's
+    """Both planners solve D1; the batched planner's plan duration is
+    within 2x of the oracle's
     (tolerance-based golden comparison, SURVEY.md section 7)."""
     orc, prob = _di_oracle()
     reached_o, stats_o, plan_o = orc.plan(
@@ -115,7 +116,7 @@ def test_tpu_planner_matches_oracle_quality():
         seed=1, max_time=20.0)
     assert reached_o
 
-    planner = lqrrt_tpu.Planner(
+    planner = lqrrt_jax.Planner(
         prob["dynamics"], prob["lqr"], prob["constraints"],
         horizon=prob["horizon"], dt=prob["dt"], goal0=prob["goal"],
         min_time=0.0, max_time=20.0, printing=False,
@@ -127,14 +128,14 @@ def test_tpu_planner_matches_oracle_quality():
     dur_o = stats_o["plan_duration_s"]
     dur_t = planner.T
     assert dur_t <= 2.0 * dur_o + 1.0, (
-        f"TPU plan {dur_t}s much worse than oracle {dur_o}s")
+        f"batched plan {dur_t}s much worse than oracle {dur_o}s")
 
 
 def test_oracle_goal_entry_truncation():
     """goal_entry_trunc=True stops every steer at its first in-goal step —
-    the rollout that crosses the goal box ends inside it, matching the TPU
-    planner's fused goal stop (VERDICT r3 item 4: truncation-matched
-    oracle for apples-to-apples quality ratios)."""
+    the rollout that crosses the goal box ends inside it, matching the
+    batched planner's fused goal stop (a truncation-matched oracle gives
+    apples-to-apples quality ratios)."""
     orc, prob = _di_oracle()
     orc.goal_entry_trunc = True
     orc.is_feasible = lambda x, u: True       # clear workspace for the steer

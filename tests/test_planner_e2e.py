@@ -6,14 +6,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import lqrrt_tpu
-from lqrrt_tpu.models import double_integrator as di
+import lqrrt_jax
+from lqrrt_jax.models import double_integrator as di
 
 
 @pytest.fixture(scope="module")
 def planned():
     prob = di.default_problem()
-    planner = lqrrt_tpu.Planner(
+    planner = lqrrt_jax.Planner(
         prob["dynamics"], prob["lqr"], prob["constraints"],
         horizon=prob["horizon"], dt=prob["dt"], goal0=prob["goal"],
         min_time=0.2, max_time=6.0, printing=False,
@@ -97,7 +97,7 @@ def test_kill_update_preempts():
     out the 60 s max_time (reference C10, SURVEY.md section 3.4)."""
     import time as _time
     prob = di.default_problem()
-    planner = lqrrt_tpu.Planner(
+    planner = lqrrt_jax.Planner(
         prob["dynamics"], prob["lqr"], prob["constraints"],
         horizon=prob["horizon"], dt=prob["dt"], goal0=prob["goal"],
         min_time=0.0, max_time=60.0, printing=False,
@@ -130,7 +130,7 @@ def test_kill_update_preempts():
 
 def test_max_nodes_respected():
     prob = di.default_problem()
-    planner = lqrrt_tpu.Planner(
+    planner = lqrrt_jax.Planner(
         prob["dynamics"], prob["lqr"], prob["constraints"],
         horizon=prob["horizon"], dt=prob["dt"], goal0=prob["goal"],
         min_time=0.0, max_time=30.0, max_nodes=200, printing=False,
@@ -145,7 +145,7 @@ def test_max_nodes_respected():
 
 def test_guide_bias_used():
     prob = di.default_problem(obstacles=False)
-    planner = lqrrt_tpu.Planner(
+    planner = lqrrt_jax.Planner(
         prob["dynamics"], prob["lqr"], prob["constraints"],
         horizon=prob["horizon"], dt=prob["dt"], goal0=prob["goal"],
         min_time=0.0, max_time=5.0, printing=False,
@@ -158,7 +158,7 @@ def test_guide_bias_used():
 
 def test_specific_time_budget():
     prob = di.default_problem()
-    planner = lqrrt_tpu.Planner(
+    planner = lqrrt_jax.Planner(
         prob["dynamics"], prob["lqr"], prob["constraints"],
         horizon=prob["horizon"], dt=prob["dt"], goal0=prob["goal"],
         printing=False, batch_size=32, capacity=512, nn_block=256)
@@ -178,7 +178,7 @@ def test_fpr_warm_start_replans():
     retention).  Both the first call (straight-line pseudo-plan) and warm
     replans must work from ONE compiled chunk variant."""
     prob = di.default_problem()
-    planner = lqrrt_tpu.Planner(
+    planner = lqrrt_jax.Planner(
         prob["dynamics"], prob["lqr"], prob["constraints"],
         horizon=prob["horizon"], dt=prob["dt"], goal0=prob["goal"],
         min_time=0.0, max_time=20.0, printing=False, FPR=0.4,
@@ -202,7 +202,7 @@ def test_finish_on_goal_forces_exact_arrival():
     terminal steer runs at an extended horizon; merely stopping at the goal
     *buffer* boundary (the pre-fix behavior) fails this."""
     prob = di.default_problem()
-    planner = lqrrt_tpu.Planner(
+    planner = lqrrt_jax.Planner(
         prob["dynamics"], prob["lqr"], prob["constraints"],
         horizon=prob["horizon"], dt=prob["dt"], goal0=prob["goal"],
         min_time=0.2, max_time=6.0, printing=False,
@@ -221,7 +221,7 @@ def test_finish_on_goal_forces_exact_arrival():
 def test_refinement_after_capacity():
     """Once the tree saturates capacity, refine=True keeps the budget buying
     plan quality via anytime restarts: stash the best tree so far, reseed,
-    keep growing, commit the min over all trees (VERDICT r2 item 1).  The
+    keep growing, commit the min over all trees.  The
     committed plan must be monotone non-increasing in budget (guaranteed by
     construction: a longer budget's tree set is a superset), restarts must
     actually run, and the chosen tree must stay structurally valid."""
@@ -236,7 +236,7 @@ def test_refinement_after_capacity():
         return clock
 
     def run(refine, n_chunks):
-        p = lqrrt_tpu.Planner(
+        p = lqrrt_jax.Planner(
             prob["dynamics"], prob["lqr"], prob["constraints"],
             horizon=prob["horizon"], dt=prob["dt"], goal0=prob["goal"],
             printing=False, batch_size=64, capacity=256, nn_block=128,
@@ -267,7 +267,7 @@ def test_refinement_after_capacity():
 
 
 def test_informed_restarts_never_hurt():
-    """informed= corridor biasing (restart mechanism (b), VERDICT r2 item 1)
+    """informed= corridor biasing (restart mechanism (b))
     at fixed seed/chunks: the informed run must commit a plan no longer than
     the uninformed run (both take the min over their restart stashes; the
     informed pool only changes later restarts' sampling), and the plan must
@@ -283,7 +283,7 @@ def test_informed_restarts_never_hurt():
         return clock
 
     def run(informed):
-        p = lqrrt_tpu.Planner(
+        p = lqrrt_jax.Planner(
             prob["dynamics"], prob["lqr"], prob["constraints"],
             horizon=prob["horizon"], dt=prob["dt"], goal0=prob["goal"],
             printing=False, batch_size=64, capacity=256, nn_block=128,
@@ -334,10 +334,10 @@ def test_informed_restarts_never_hurt():
 def test_dynamic_obstacles_zero_recompile():
     """Moving-obstacle replans via Constraints.set_feasibility_data: the
     obstacle field rides through the compiled chunk as a traced argument, so
-    value updates cost ZERO recompiles (reference C9 dynamic obstacle swap,
-    VERDICT r1 item 4) — and the updated field is actually honored."""
-    from lqrrt_tpu.constraints import Constraints
-    from lqrrt_tpu.ops.collision import circles_free_data
+    value updates cost ZERO recompiles (reference C9 dynamic obstacle swap)
+    — and the updated field is actually honored."""
+    from lqrrt_jax.constraints import Constraints
+    from lqrrt_jax.ops.collision import circles_free_data
 
     prob = di.default_problem(obstacles=False)
     data0 = {"centers": np.array([[1.5, 0.0]], np.float32),
@@ -346,7 +346,7 @@ def test_dynamic_obstacles_zero_recompile():
                        goal_buffer=prob["constraints"].goal_buffer,
                        is_feasible=circles_free_data(margin=0.05),
                        feasibility_data=data0)
-    planner = lqrrt_tpu.Planner(
+    planner = lqrrt_jax.Planner(
         prob["dynamics"], prob["lqr"], cons, horizon=prob["horizon"],
         dt=prob["dt"], goal0=prob["goal"], printing=False, batch_size=64,
         capacity=512, nn_block=128, saturate=prob["saturate"], seed=2)
@@ -382,7 +382,7 @@ def test_dynamic_obstacles_zero_recompile():
 
 
 def test_feasibility_data_requires_ctor():
-    from lqrrt_tpu.constraints import Constraints
+    from lqrrt_jax.constraints import Constraints
     cons = Constraints(nstates=4, ncontrols=2, goal_buffer=np.ones(4))
     import pytest
     with pytest.raises(ValueError, match="feasibility_data"):
@@ -390,7 +390,7 @@ def test_feasibility_data_requires_ctor():
 
 
 def test_leaf_rewire_mode_refines_past_capacity():
-    """refine_mode='leaf_rewire' (VERDICT r3 item 6): once the tree fills,
+    """refine_mode='leaf_rewire': once the tree fills,
     the budget runs leaf-replacement + rewiring chunks on the SAME tree —
     the refine chunk variant must actually engage, the plan must stay
     goal-reaching and feasible, and more budget must never lengthen the
@@ -407,7 +407,7 @@ def test_leaf_rewire_mode_refines_past_capacity():
         return clock
 
     def run(n_chunks):
-        p = lqrrt_tpu.Planner(
+        p = lqrrt_jax.Planner(
             prob["dynamics"], prob["lqr"], prob["constraints"],
             horizon=prob["horizon"], dt=prob["dt"], goal0=prob["goal"],
             printing=False, batch_size=64, capacity=256, nn_block=128,
@@ -441,8 +441,8 @@ def test_depth_planting_solves_deep_instance():
     generations; a goal needing more edges than F is unreachable by any
     single cycle.  The round-5 reseed policy PLANTS the stash's best chain
     prefix (always before the first goal; alternating afterwards), so
-    successive cycles inherit depth and such instances solve (measured on
-    TPU: the two-wall hard boat was unsolvable at ANY budget without it).
+    successive cycles inherit depth and such instances solve (the two-wall
+    hard boat was unsolvable at ANY budget without it).
 
     Deep double-integrator: capacity/batch = 2 generations per cycle, a
     short horizon, and a goal ~6+ edges away."""
@@ -457,7 +457,7 @@ def test_depth_planting_solves_deep_instance():
         calls["n"] += 1
         return 0.0 if calls["n"] <= 30 else 1e9
 
-    planner = lqrrt_tpu.Planner(
+    planner = lqrrt_jax.Planner(
         prob["dynamics"], prob["lqr"], prob["constraints"],
         horizon=1.0, dt=prob["dt"], goal0=goal, printing=False,
         batch_size=128, capacity=256, nn_block=128, seed=11,

@@ -8,10 +8,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import lqrrt_tpu
-from lqrrt_tpu.core.sampling import sample_batch
-from lqrrt_tpu.models import double_integrator as di
-from lqrrt_tpu.parallel import mesh as meshlib
+import lqrrt_jax
+from lqrrt_jax.core.sampling import sample_batch
+from lqrrt_jax.models import double_integrator as di
+from lqrrt_jax.parallel import mesh as meshlib
 
 
 N_DEV = 8
@@ -23,7 +23,7 @@ def prob():
 
 
 def _mk_planner(prob, mesh=None, seed=3, batch=64, capacity=1024, **kw):
-    return lqrrt_tpu.Planner(
+    return lqrrt_jax.Planner(
         prob["dynamics"], prob["lqr"], prob["constraints"],
         horizon=prob["horizon"], dt=prob["dt"], goal0=prob["goal"],
         printing=False, batch_size=batch, capacity=capacity, nn_block=256,
@@ -165,8 +165,8 @@ def test_mesh_batch_divisibility_error(prob):
 def test_mesh_planner_dynamic_obstacle_data(prob):
     """feasibility_data threading works under shard_map too: the obstacle
     pytree is replicated through the chunk, zero recompiles on updates."""
-    from lqrrt_tpu.constraints import Constraints
-    from lqrrt_tpu.ops.collision import circles_free_data
+    from lqrrt_jax.constraints import Constraints
+    from lqrrt_jax.ops.collision import circles_free_data
 
     base = di.default_problem(obstacles=False)
     data0 = {"centers": np.array([[1.5, 0.0]], np.float32),
@@ -176,7 +176,7 @@ def test_mesh_planner_dynamic_obstacle_data(prob):
                        is_feasible=circles_free_data(margin=0.05),
                        feasibility_data=data0)
     mesh = meshlib.make_mesh(N_DEV)
-    planner = lqrrt_tpu.Planner(
+    planner = lqrrt_jax.Planner(
         base["dynamics"], base["lqr"], cons, horizon=base["horizon"],
         dt=base["dt"], goal0=base["goal"], printing=False, batch_size=64,
         capacity=512, nn_block=128, saturate=base["saturate"], seed=2,

@@ -10,10 +10,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from lqrrt_tpu.core.rewire import (make_nearest_pred, make_rewire,
+from lqrrt_jax.core.rewire import (make_nearest_pred, make_rewire,
                                    recompute_node_times)
-from lqrrt_tpu.core.rounds import RoundSpec
-from lqrrt_tpu.core.tree import init_tree
+from lqrrt_jax.core.rounds import RoundSpec
+from lqrrt_jax.core.tree import init_tree
 
 
 def test_recompute_node_times_matches_host_reference():

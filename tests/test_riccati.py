@@ -6,7 +6,7 @@ import scipy.linalg
 import jax
 import jax.numpy as jnp
 
-from lqrrt_tpu.ops import riccati
+from lqrrt_jax.ops import riccati
 
 
 def _random_system(key, n, m, stable_shift=0.0):

@@ -8,7 +8,7 @@ import pytest
 pytest.importorskip("ctypes")
 
 try:
-    from lqrrt_tpu.runtime import TrajectoryServer
+    from lqrrt_jax.runtime import TrajectoryServer
     _ts = TrajectoryServer(2, 1, cap_steps=16)  # probe: compiles the .so
     NATIVE = True
 except Exception:  # pragma: no cover - no C compiler in env
@@ -89,12 +89,12 @@ def test_no_torn_reads_under_concurrent_publish():
 
 
 def test_attach_planner_publishes_on_replan():
-    import lqrrt_tpu
-    from lqrrt_tpu.models import double_integrator as di
-    from lqrrt_tpu.utils import BufferSink, attach
+    import lqrrt_jax
+    from lqrrt_jax.models import double_integrator as di
+    from lqrrt_jax.utils import BufferSink, attach
 
     prob = di.default_problem()
-    planner = lqrrt_tpu.Planner(
+    planner = lqrrt_jax.Planner(
         prob["dynamics"], prob["lqr"], prob["constraints"],
         horizon=prob["horizon"], dt=prob["dt"], goal0=prob["goal"],
         min_time=0.0, max_time=5.0, printing=False, batch_size=32,

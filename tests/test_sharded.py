@@ -6,12 +6,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from lqrrt_tpu.core.rounds import RoundSpec, make_round
-from lqrrt_tpu.core.tree import init_tree, best_node
-from lqrrt_tpu.models import double_integrator as di
-from lqrrt_tpu.parallel import mesh as meshlib
-from lqrrt_tpu.parallel.fleet import FleetPlanner
-from lqrrt_tpu.parallel.sharded import (jit_sharded_round, make_sharded_round,
+from lqrrt_jax.core.rounds import RoundSpec, make_round
+from lqrrt_jax.core.tree import init_tree, best_node
+from lqrrt_jax.models import double_integrator as di
+from lqrrt_jax.parallel import mesh as meshlib
+from lqrrt_jax.parallel.fleet import FleetPlanner
+from lqrrt_jax.parallel.sharded import (jit_sharded_round, make_sharded_round,
                                         replicate_tree)
 
 
@@ -78,7 +78,7 @@ def test_sharded_round_matches_singlechip_commit_semantics(prob):
                              goal)
 
     # reproduce the exact per-device sample batch on one chip
-    from lqrrt_tpu.core.sampling import sample_batch
+    from lqrrt_jax.core.sampling import sample_batch
     xs = []
     for d in range(8):
         kd = jax.random.fold_in(key, d)
@@ -99,15 +99,15 @@ def test_sharded_round_matches_singlechip_commit_semantics(prob):
 
 def test_topk_collective_matches_singlechip_topk(prob):
     """The psum-assembled topk winners must BIT-match a single-chip round
-    that commits the identical global top-k selection (VERDICT round 2 weak
-    #4: the prior topk test only bounded node counts).  The candidate batch
+    that commits the identical global top-k selection (bounding node counts
+    alone would not catch a wrong selection).  The candidate batch
     includes engineered score TIES (duplicate samples — owner masking and
     tie-breaking are exactly where the collective would break silently) and
     one ALL-INFEASIBLE shard (device 3 samples its own root state: zero
     error => arrived at step 0 => length 0 => score inf)."""
-    from lqrrt_tpu.core.rounds import commit_candidates, make_expand
-    from lqrrt_tpu.core.sampling import sample_batch
-    from lqrrt_tpu.parallel.sharded import candidate_scores
+    from lqrrt_jax.core.rounds import commit_candidates, make_expand
+    from lqrrt_jax.core.sampling import sample_batch
+    from lqrrt_jax.parallel.sharded import candidate_scores
 
     m = meshlib.make_mesh(8)
     spec = _spec(batch=64)
@@ -186,11 +186,10 @@ def test_topk_collective_matches_singlechip_topk(prob):
 
 def test_refine_round_mesh_matches_singlechip(prob):
     """Mesh refine mode (leaf replacement + replicated rewire) bit-matches
-    the single-chip refine round on a saturated tree (VERDICT round 2 weak
-    #7: top_k tie-breaking inside commit_batch_refine must be identical or
+    the single-chip refine round on a saturated tree (top_k tie-breaking inside commit_batch_refine must be identical or
     replicated trees silently diverge)."""
-    from lqrrt_tpu.core.rounds import make_refine_round
-    from lqrrt_tpu.core.sampling import sample_batch
+    from lqrrt_jax.core.rounds import make_refine_round
+    from lqrrt_jax.core.sampling import sample_batch
 
     m = meshlib.make_mesh(8)
     spec = _spec(batch=64, cap=128)
@@ -309,9 +308,9 @@ def test_fleet_wallclock_budget_and_goal_times(prob):
 
 def test_fleet_per_scenario_worlds_and_batched_extraction(prob):
     """Each scenario gets its OWN obstacle set (per-scenario feasibility
-    data, VERDICT round 2 weak #6) and the batched extractor returns the
+    data) and the batched extractor returns the
     same plans as per-scenario extraction, in one gather."""
-    from lqrrt_tpu.ops.collision import circles_free_data
+    from lqrrt_jax.ops.collision import circles_free_data
 
     m = meshlib.make_fleet_mesh(8)
     S = 8
@@ -342,7 +341,7 @@ def test_fleet_per_scenario_worlds_and_batched_extraction(prob):
     # batched extraction == a manual host climb (old loop semantics)
     plans = fleet.extract_plans()
     assert set(plans) == set(range(S))
-    from lqrrt_tpu.core.tree import best_node
+    from lqrrt_jax.core.tree import best_node
     for s in (0, 3, 7):
         np.testing.assert_allclose(plans[s][0], x0s[s], atol=1e-5)
         t = jax.tree.map(lambda a: a[s], fleet.trees)
@@ -364,8 +363,7 @@ def test_fleet_budget_clamp(prob):
     """The budget binds on BOTH a cold and a warm plan(): cold, compile is
     paid before the internal t0 (plus a 1-round probe chunk), so elapsed_s
     respects max_time; warm, the end-to-end wall clock respects it too
-    (VERDICT round 2 weak #6: 20% overshoot; round 3 weak #1: cold compile
-    landing inside the timed window)."""
+    (a cold compile must not land inside the timed window)."""
     import time as _time
     fleet = FleetPlanner(
         prob["dynamics"], prob["lqr"], prob["erf"],

@@ -3,19 +3,19 @@ import name (reference lqrrt/__init__.py re-exports, SURVEY.md section 1)."""
 import numpy as np
 
 import lqrrt
-import lqrrt_tpu
+import lqrrt_jax
 
 
 def test_shim_reexports_framework_classes():
-    assert lqrrt.Planner is lqrrt_tpu.Planner
-    assert lqrrt.Tree is lqrrt_tpu.Tree
-    assert lqrrt.Constraints is lqrrt_tpu.Constraints
+    assert lqrrt.Planner is lqrrt_jax.Planner
+    assert lqrrt.Tree is lqrrt_jax.Tree
+    assert lqrrt.Constraints is lqrrt_jax.Constraints
     assert lqrrt.__all__ == ["Planner", "Tree", "Constraints"]
 
 
 def test_shim_plans_end_to_end():
     """A reference-style user program against ``import lqrrt`` runs whole."""
-    from lqrrt_tpu.models import double_integrator as di
+    from lqrrt_jax.models import double_integrator as di
 
     prob = di.default_problem()
     planner = lqrrt.Planner(

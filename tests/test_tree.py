@@ -2,8 +2,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from lqrrt_tpu.tree import Tree
-from lqrrt_tpu.core.tree import best_node, init_tree
+from lqrrt_jax.tree import Tree
+from lqrrt_jax.core.tree import best_node, init_tree
 
 
 def _mk_host_tree():
@@ -75,11 +75,11 @@ def test_valid_mask():
 def test_host_tree_snapshot_consistent():
     """Planner.get_tree snapshots the device SoA into the reference-shaped
     host Tree: climb + trajectory must reconstruct a consistent branch."""
-    import lqrrt_tpu
-    from lqrrt_tpu.models import double_integrator as di
+    import lqrrt_jax
+    from lqrrt_jax.models import double_integrator as di
 
     prob = di.default_problem()
-    planner = lqrrt_tpu.Planner(
+    planner = lqrrt_jax.Planner(
         prob["dynamics"], prob["lqr"], prob["constraints"],
         horizon=prob["horizon"], dt=prob["dt"], goal0=prob["goal"],
         min_time=0.0, max_time=10.0, printing=False, batch_size=32,

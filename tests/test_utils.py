@@ -6,9 +6,9 @@ import time
 import numpy as np
 import pytest
 
-import lqrrt_tpu
-from lqrrt_tpu.models import double_integrator as di
-from lqrrt_tpu.utils import (BufferSink, JsonlSink, PhaseTimer,
+import lqrrt_jax
+from lqrrt_jax.models import double_integrator as di
+from lqrrt_jax.utils import (BufferSink, JsonlSink, PhaseTimer,
                              ReplanWatchdog, attach, load, save)
 
 
@@ -17,7 +17,7 @@ def _small_planner(**kw):
     defaults = dict(min_time=0.0, max_time=5.0, printing=False,
                     batch_size=32, capacity=256, nn_block=128, seed=1)
     defaults.update(kw)
-    planner = lqrrt_tpu.Planner(
+    planner = lqrrt_jax.Planner(
         prob["dynamics"], prob["lqr"], prob["constraints"],
         horizon=prob["horizon"], dt=prob["dt"], goal0=prob["goal"],
         **defaults)
@@ -86,9 +86,9 @@ def test_checkpoint_dim_mismatch(tmp_path):
                         specific_time=0.5, pruning=False)
     path = str(tmp_path / "ckpt.npz")
     save(planner, path)
-    from lqrrt_tpu.models import boat
+    from lqrrt_jax.models import boat
     bprob = boat.default_problem()
-    other = lqrrt_tpu.Planner(
+    other = lqrrt_jax.Planner(
         bprob["dynamics"], bprob["lqr"], bprob["constraints"],
         horizon=1.0, dt=0.05, goal0=bprob["goal"], printing=False,
         batch_size=16, capacity=128, nn_block=128)
@@ -158,10 +158,10 @@ def test_checkpoint_loads_pre_n_children_trees(tmp_path):
     """Format-2 checkpoints written before child counting existed load with
     n_children reconstructed exactly from the parent array."""
     import jax.numpy as jnp
-    from lqrrt_tpu.utils import checkpoint
+    from lqrrt_jax.utils import checkpoint
 
     prob = di.default_problem()
-    p = lqrrt_tpu.Planner(
+    p = lqrrt_jax.Planner(
         prob["dynamics"], prob["lqr"], prob["constraints"],
         horizon=prob["horizon"], dt=prob["dt"], goal0=prob["goal"],
         printing=False, batch_size=32, capacity=256, nn_block=128,
@@ -176,7 +176,7 @@ def test_checkpoint_loads_pre_n_children_trees(tmp_path):
         data = {k: z[k] for k in z.files if k != "tree_n_children"}
     np.savez_compressed(path, **data)
 
-    q = lqrrt_tpu.Planner(
+    q = lqrrt_jax.Planner(
         prob["dynamics"], prob["lqr"], prob["constraints"],
         horizon=prob["horizon"], dt=prob["dt"], goal0=prob["goal"],
         printing=False, batch_size=32, capacity=256, nn_block=128,
@@ -192,10 +192,10 @@ def test_checkpoint_loads_pre_n_children_trees(tmp_path):
 
 def test_animate_planner_writes_gif(tmp_path):
     """C12 animation parity: tree-growth replay + vehicle trace saved as GIF."""
-    from lqrrt_tpu.viz import animate_planner
+    from lqrrt_jax.viz import animate_planner
 
     prob = di.default_problem()
-    p = lqrrt_tpu.Planner(
+    p = lqrrt_jax.Planner(
         prob["dynamics"], prob["lqr"], prob["constraints"],
         horizon=prob["horizon"], dt=prob["dt"], goal0=prob["goal"],
         printing=False, batch_size=32, capacity=128, nn_block=128,
